@@ -1,10 +1,10 @@
-"""sdrjfm_tpu — a TPU-native broadcast-FM receive framework.
+"""sdrjfm_tpu — an accelerator-native broadcast-FM receive framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the sdr-j-fm
+A from-scratch JAX/XLA re-design of the capabilities of the sdr-j-fm
 receiver (reference: /root/reference, JvanKatwijk/sdr-j-fm): 2.304 MS/s IQ
 front end, decimation cascade, FM discrimination, 19 kHz pilot stereo with
 perfect-stereo-separation correction, deemphasis, squelch, band scan, and the
-57 kHz RDS BPSK stack (bit recovery on TPU, block sync / Meggitt FEC / group
+57 kHz RDS BPSK stack (bit recovery on the device, block sync / Meggitt FEC / group
 decode on host).
 
 Instead of the reference's per-sample C++ loop, sample streams are processed

@@ -79,8 +79,8 @@ def _build_rx_parser(sub):
     p.add_argument("--rds", action="store_true", help="decode RDS")
     p.add_argument("--rds-decoder", default="block",
                    choices=["block", "scan1", "scan2", "scan3"],
-                   help="bit decoder: TPU-native block or the reference's "
-                        "per-sample algorithms")
+                   help="bit decoder: the block-batched demodulator or the "
+                        "reference's per-sample algorithms")
     p.add_argument("--no-pss", action="store_true")
     p.add_argument("--deemphasis", default="50",
                    help="deemphasis time constant in us, or a preset: "
@@ -471,6 +471,14 @@ def cmd_rx(args) -> int:
     is_pipe = (not is_rtlsdr and not is_airspy and not is_hackrf
                and not is_sdrplay
                and (args.iq == "-" or _is_fifo(args.iq)))
+    if args.ckpt_backend == "orbax":
+        try:
+            import orbax.checkpoint  # noqa: F401
+        except ImportError:
+            print("--ckpt-backend orbax needs the orbax-checkpoint package, "
+                  "which is not installed; use --ckpt-backend npz",
+                  file=sys.stderr)
+            return 2
     if args.gain is not None and not (is_rtltcp or is_rtlsdr):
         print("--gain controls an rtl tuner; pass --iq rtl_tcp://host:port "
               "or --iq rtlsdr[:index]", file=sys.stderr)
@@ -625,7 +633,7 @@ def cmd_rx(args) -> int:
     if fm_bw_hz is not None:
         cfg_kw["fm_bandwidth_hz"] = fm_bw_hz
     if args.block_fm < 4096:
-        # ultra-low-latency geometry (README latency table): the
+        # ultra-low-latency geometry (block_fm 2048 ≈ 10.7 ms): the
         # overlap-save hops shrink to the block; the scan RDS decoders
         # have no bit grid so they admit any block size
         cfg_kw["fm_hop"] = args.block_fm
@@ -677,8 +685,9 @@ def cmd_rx(args) -> int:
             print("--squelch-level auto profiles at 2.304 MS/s; pass an "
                   "explicit level with --input-rate", file=sys.stderr)
             return 2
-        # profile the first block host-side (scipy demod — no second TPU
-        # compile) and pick the slider level from the band-energy ratio
+        # profile the first block host-side (scipy demod — no second
+        # device compile) and pick the slider level from the band-energy
+        # ratio
         from .ops.squelch import auto_squelch_level, host_demod_profile
         demod0 = host_demod_profile(iq[: cfg.block_in], cfg.iq_format,
                                     args.freq_offset)
@@ -921,10 +930,10 @@ def cmd_rx(args) -> int:
                 # live source would overrun its ring during the first
                 # dispatch's trace+compile (seconds) and drop the head of
                 # the stream
-                from .runtime.stream import _jit_init_state, _wire_dtype
+                from .runtime.stream import _wire_dtype
                 _z_shape = ((cfg.wire_len,) if cfg.iq_format == "c64"
                             else (cfg.wire_len, 2))
-                rx.jit_step()(_jit_init_state(rx), controls,
+                rx.jit_step()(rx.init_state(), controls,
                               jnp.zeros(_z_shape, _wire_dtype(cfg)))
                 src.start()
                 try:
@@ -1338,6 +1347,8 @@ def main(argv=None) -> int:
             p_rx.set_defaults(**{k: v for k, v in profile.items()
                                  if k in dests})
     args = ap.parse_args(argv)
+    from .runtime.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.cmd == "rx":
         return cmd_rx(args)
     if args.cmd == "scan":

@@ -3,7 +3,7 @@
 These mirror the signal contract of the reference receiver
 (/root/reference/includes/fm-constants.h:35,105-119, radio.cpp:231-233,
 src/fm/fm-processor.cpp:31-36) — the *semantics*, not the code: every stage of
-the TPU pipeline obeys the same rate cascade 2,304,000 -> 384,000 -> 192,000
+the device pipeline obeys the same rate cascade 2,304,000 -> 384,000 -> 192,000
 -> 48,000 and the same 19 kHz pilot / 57 kHz RDS frequency plan.
 """
 

@@ -1,4 +1,4 @@
-"""Input source abstraction — the deviceHandler interface, TPU-framework shape.
+"""Input source abstraction — the deviceHandler interface, block-framework shape.
 
 The reference defines an abstract device (devices/device-handler.h:60-85:
 getRate / set+getVFOFrequency / legalFrequency / restartReader / stopReader /

@@ -105,12 +105,69 @@ def fm_modulate(mpx: np.ndarray, mpx_rate: int,
     return iq.astype(np.complex64)
 
 
+def multistation_iq(stations, seconds: float = 3.0, noise: float = 0.01,
+                    seed: int = 0) -> np.ndarray:
+    """One wideband capture holding several stations at once.
+
+    `stations` is a sequence of dicts: `offset` (Hz from the capture
+    centre), `pi`, `name` (the 8-character PS name), `tone` (Hz, the same
+    on both channels), and optionally `amplitude` (default 1.0).  Each
+    station repeats its PS name in 0A groups (PTY 10, RDS level 0.08) and
+    is FM-modulated at its offset; complex white noise of std `noise` per
+    rail, drawn from `seed`, is added to the sum.
+    """
+    from ..rds import encode
+    n = int(seconds * C.FM_RATE)
+    t = np.arange(n) / C.FM_RATE
+    total = None
+    for st in stations:
+        name_bits = []
+        for _ in range(40):
+            for seg in range(4):
+                name_bits.extend(encode.group_0a(
+                    st["pi"], 10, seg, st["name"][2 * seg:2 * seg + 2]))
+        syms = encode.differential_encode(np.asarray(name_bits, np.int8))
+        audio = 0.6 * np.sin(2 * np.pi * st["tone"] * t)
+        mpx = synth_mpx(audio, audio, MPXParams(rds_level=0.08),
+                        rds_bits=syms)
+        iq = fm_modulate(mpx, C.FM_RATE, carrier_offset_hz=st["offset"],
+                         amplitude=st.get("amplitude", 1.0))
+        total = iq if total is None else total + iq
+    rng = np.random.default_rng(seed)
+    total = total + noise * (rng.standard_normal(len(total))
+                             + 1j * rng.standard_normal(len(total)))
+    return total.astype(np.complex64)
+
+
 def tones(n: int, rate: int, freqs=(1000.0,), amps=(0.8,)) -> np.ndarray:
     t = np.arange(n, dtype=np.float64) / rate
     out = np.zeros(n, dtype=np.float64)
     for f, a in zip(freqs, amps):
         out += a * np.sin(2.0 * np.pi * f * t)
     return out
+
+
+def band_power(x: np.ndarray, rate: int, freq: float,
+               guard_bins: int = 3) -> float:
+    """Hann-windowed power of `x` at `freq` (±guard bins)."""
+    w = np.hanning(len(x))
+    X = np.abs(np.fft.rfft(x * w)) ** 2
+    bin_f = int(round(freq * len(x) / rate))
+    return X[bin_f - guard_bins: bin_f + guard_bins + 1].sum()
+
+
+def tone_snr_db(x: np.ndarray, rate: int, freq: float,
+                guard_bins: int = 3, exclude_hz=()) -> float:
+    """Power at `freq` (±guard bins) vs everything else (excluding DC) —
+    the audio measure the end-to-end tests hold the receiver to.
+
+    exclude_hz: other program tones (±guard bins) left out of the noise,
+    such as the other stereo channel's tone, whose leakage is crosstalk
+    (measured as separation) rather than noise."""
+    noise = (np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2)[8:].sum()
+    sig = band_power(x, rate, freq, guard_bins)
+    noise -= sig + sum(band_power(x, rate, f, guard_bins) for f in exclude_hz)
+    return 10 * np.log10(sig / max(noise, 1e-30))
 
 
 def expected_demod_gain(deviation_hz: float = 75000.0,

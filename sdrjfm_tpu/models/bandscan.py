@@ -7,7 +7,7 @@ live stream with averaging semantics (fm-processor.cpp:480-495,886-904 —
 clearAverage resets the spectrum average a retune, so a decision reflects
 several FFT frames, not one).
 
-TPU-first formulation: instead of one serial FFT decision per retune, every
+Batched formulation: instead of one serial FFT decision per retune, every
 candidate channel inside the current capture window is scanned in ONE
 vmapped dispatch (offsets x blocks), so a 21 MHz band costs
 ceil(band / window) hardware retunes rather than 205.  File captures reuse

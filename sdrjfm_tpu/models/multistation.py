@@ -1,8 +1,8 @@
 """Multi-station receiver: demodulate N stations from ONE capture at once.
 
 The reference tunes one station at a time — retuning is an LO-offset change
-(radio.cpp:1056-1066) and the band scan identifies hits serially.  On TPU
-the natural formulation is a vmap of the flagship `Receiver.step` over a
+(radio.cpp:1056-1066) and the band scan identifies hits serially.  On an
+accelerator the natural formulation is a vmap of the flagship `Receiver.step` over a
 station axis: the wideband input block is shared (broadcast), each station
 carries its own Controls (LO offset, gains) and its own state pytree, and
 the N front ends batch into one conv/FFT program — identifying every
@@ -83,7 +83,7 @@ class ShardedMultiStationReceiver(MultiStationReceiver):
     """
 
     def __init__(self, rx: Receiver, mesh=None, axis: str = "stations"):
-        from ..parallel.sharding import make_mesh, relaxed_shard_map
+        from ..parallel.sharding import make_mesh
 
         super().__init__(rx)
         self.mesh = mesh if mesh is not None else make_mesh(axis=axis)
@@ -93,10 +93,10 @@ class ShardedMultiStationReceiver(MultiStationReceiver):
         self.station_sharding = NamedSharding(self.mesh, P(axis))
         self.replicated = NamedSharding(self.mesh, P())
         vstep = jax.vmap(rx.step, in_axes=(0, 0, None))
-        body = relaxed_shard_map(
+        body = jax.shard_map(
             vstep, mesh=self.mesh,
             in_specs=(P(axis), P(axis), P()),
-            out_specs=(P(axis), P(axis)))
+            out_specs=(P(axis), P(axis)), check_vma=False)
         self._step = jax.jit(body)
 
     def pad_offsets(self, offsets_hz: Sequence[int]) -> List[int]:

@@ -1,7 +1,7 @@
 """Spectrum / waterfall / constellation computation — the scopes, headless.
 
 The reference renders HF/LF spectra, a waterfall, and the RDS IQ
-constellation with Qt/Qwt (src/scopes-qwt6/, SURVEY.md C4-C7).  The TPU
+constellation with Qt/Qwt (src/scopes-qwt6/, SURVEY.md C4-C7).  This
 framework computes the same displays as arrays for file export or downstream
 UIs:
 

@@ -141,7 +141,7 @@ def fir_decimate(x: Array, kernel: Array, factor: int,
 def fir_interpolate(x: Array, kernel: Array, factor: int,
                     carry: Array) -> Tuple[Array, Array]:
     """Polyphase interpolation by `factor` (zero-stuff + lowpass, gain
-    compensated).  The TPU-native equivalent of the reference's
+    compensated).  The block-batched equivalent of the reference's
     workingRate->audioRate libsamplerate converter (newconverter.cpp, used
     by sendSampletoOutput for the -m 192 kHz audio mode, main.cpp:57-60).
 
@@ -314,7 +314,7 @@ class IIRSpec:
     """Frozen pole/zero form of a biquad cascade (host-side construction).
 
     The reference designs Chebyshev/Butterworth cascades and runs them as
-    per-sample Direct-Form-II quads (iir-filters.h:71-105).  On TPU we factor
+    per-sample Direct-Form-II quads (iir-filters.h:71-105).  Here we factor
     the cascade into complex one-pole recurrences (each solved by a parallel
     associative scan) plus a short FIR numerator.
     """

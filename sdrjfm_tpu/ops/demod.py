@@ -10,7 +10,7 @@ to pure shifts + elementwise math; the only carried state is the 1-2 sample
 history, the AFC tracker and the AM carrier tracker.
 
 The reference's atan2/arcsine lookup tables (Xtan2.cpp, fm-demodulator.cpp:
-74-77) are replaced by exact VPU transcendentals.
+74-77) are replaced by exact vectorised transcendentals.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Host-side filter/kernel design.
 
 All designs run once at pipeline-construction time in numpy (float64) and are
-then frozen into device constants, so there is no LUT machinery on the TPU —
+then frozen into device constants, so there is no LUT machinery on the device —
 the reference's SinCos/atan2 tables (src/various/sincos.cpp, Xtan2.cpp) are
-replaced by vectorized transcendentals on the VPU.
+replaced by vectorized transcendentals.
 
 The windowed-sinc recipes mirror the reference's generators semantically
 (src/various/fir-filters.cpp): Blackman window over `taps` points with the
@@ -195,7 +195,7 @@ def polyphase_resampler_kernel(factor: int, taps_per_phase: int = 32,
     Plays the role of libsamplerate SRC_SINC_MEDIUM_QUALITY in the reference's
     fmRate->workingRate and workingRate->audioRate converters
     (src/various/newconverter.cpp:37); a fixed-ratio polyphase windowed sinc
-    is the TPU-native equivalent for our exact integer ratios.
+    is the block-batched equivalent for our exact integer ratios.
     """
     taps = factor * taps_per_phase + 1
     return lowpass_sinc(taps, rolloff * 0.5 / factor, 1.0)

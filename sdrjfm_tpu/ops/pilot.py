@@ -1,8 +1,8 @@
-"""19 kHz pilot recovery — TPU-native analytic-signal estimator.
+"""19 kHz pilot recovery — block-parallel analytic-signal estimator.
 
 The reference tracks the pilot with a per-sample first-order PLL
 (src/fm/pilot-recover.cpp:54-83, loop gain 10*2pi/fmRate, fm-processor.cpp:
-78-80).  A sequential 192 kHz loop is the worst possible shape for a TPU, so
+78-80).  A sequential 192 kHz loop is the worst possible shape for an accelerator, so
 the native design extracts the pilot's *analytic signal* with a narrow
 one-sided FFT bandpass and reads phase and amplitude directly:
 

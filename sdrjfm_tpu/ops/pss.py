@@ -7,7 +7,7 @@ alpha = 10/fmRate, clamp ±pi/4, x10 boost until converged).  This is the one
 loop in the receiver that cannot be flattened into a pure parallel transform
 (SURVEY.md §7 "the hard parts").
 
-TPU-native shape, two steps beyond the naive sub-block port:
+Block-parallel shape, two steps beyond the naive sub-block port:
 
 1. The offset `acc` moves by <~5e-4 rad/sample, so it is held constant over a
    SUBBLOCK and updated once per sub-block.

@@ -1,7 +1,7 @@
 """Faithful per-sample re-implementations of the reference's feedback loops.
 
 These are `lax.scan` translations of the *semantics* (not the code) of the
-reference's recursive components.  They are far too sequential to be the TPU
+reference's recursive components.  They are far too sequential to be the device
 fast path; their role is:
 
   1. validation oracles — tests assert the fast block-parallel estimators in

@@ -270,9 +270,9 @@ def pack_f32(arrays):
     as separate real/imag runs (lossless — complex64 is two f32); bool and
     int32 are value-cast (exact for the small counters packed here).  Used
     to fuse many small per-device collectives into ONE all_gather: on a
-    1-D mesh every extra collective costs a full latency hop, and the r3
-    multichip bench showed the fully-sharded step paying ~12 distinct
-    sub-KB gathers per block (VERDICT r3, Weak #2).
+    1-D mesh every extra collective costs a full latency hop, and the
+    fully-sharded step used to issue ~12 distinct sub-KB gathers per block
+    (tests/test_collective_budget.py now pins the count).
     """
     flats, specs = [], []
     for a in arrays:

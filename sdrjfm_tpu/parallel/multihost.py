@@ -1,4 +1,4 @@
-"""Multi-host ingest: distribute IQ time-slices over DCN into a global array.
+"""Multi-host ingest: distribute IQ time-slices across hosts into a global array.
 
 The reference's ingest is one host, one producer thread, one ring
 (SURVEY.md §2.6).  At multi-host scale each host runs its own native ring
@@ -6,7 +6,7 @@ The reference's ingest is one host, one producer thread, one ring
 its *local* contiguous time slice; `jax.make_array_from_process_local_data`
 assembles the global `[block_in]` array laid out over the time mesh without
 any host ever materialising the whole block.  XLA then moves whatever the
-`FullyShardedReceiver` needs over ICI (halos, reductions) — DCN carries only
+`FullyShardedReceiver` needs between devices (halos, reductions) — the host network carries only
 the host→device staging of each host's own slice.
 
 Single-process runs (tests, the 8-device CPU mesh) degenerate to the whole
@@ -55,7 +55,7 @@ def global_iq_block(local_iq: np.ndarray, mesh: Mesh,
                ReceiverConfig.iq_format)
     Returns a global jax.Array sharded P(axis) over the mesh; no collective
     runs — each host's slice lands on its own devices over its own PCIe,
-    DCN is not touched until the compute's own collectives need it.
+    the host network is not touched until the compute's own collectives need it.
     """
     sharding = NamedSharding(mesh, P(axis))
     return jax.make_array_from_process_local_data(sharding, local_iq)

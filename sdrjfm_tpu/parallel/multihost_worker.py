@@ -6,10 +6,14 @@ and by __graft_entry__.dryrun_multichip) with
 <num_procs> <devices_per_proc> <out_json> [nblocks]`.  Each process owns
 `devices_per_proc` virtual CPU devices, initializes jax.distributed
 against the shared coordinator, stages ONLY its own contiguous time slice
-of each block (parallel/multihost.host_slice + global_iq_block — the DCN
-ingest recipe), and runs the FullyShardedReceiver over the global mesh.
-Replicated outputs (RDS bits, audio RMS) are written as JSON for the
-parent to compare with a single-process run of the same mesh size.
+of each block (parallel/multihost.host_slice + global_iq_block — the
+multi-host ingest recipe), and runs the FullyShardedReceiver over the
+global mesh.  Replicated outputs (RDS bits, audio RMS) are written as JSON
+for the parent to compare with a single-process run of the same mesh size.
+
+The worker forces the CPU platform on purpose: it is a rehearsal of the
+multi-process mesh on virtual devices, not a measurement path, and it
+never stands in for an accelerator run.
 """
 
 import json

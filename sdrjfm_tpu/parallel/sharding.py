@@ -1,13 +1,13 @@
 """Multi-chip sharding of the receive chain over a jax.sharding.Mesh.
 
 The reference's only concurrency is thread-pipeline-over-ring-buffers on one
-host (SURVEY.md §2.6).  The TPU framework's scaling model is *data
+host (SURVEY.md §2.6).  This framework's device scaling model is *data
 parallelism over time*:
 
   - the 2.304 MS/s front end (gains, DC servo, LO mix, optional 65536-pt
     channel filter, ÷12 decimation cascade) runs inside `shard_map` with the
     input block laid out over the mesh's `time` axis.  Convolution left-halos
-    travel over ICI via `ppermute` from the ring neighbour; device 0 uses the
+    come from the ring neighbour via `ppermute`; device 0 uses the
     inter-block carry.  The per-block DC estimate uses a strided subsample
     `all_gather`ed and reduced identically on every device, so the update is
     bit-exact regardless of device count.
@@ -20,7 +20,7 @@ parallelism over time*:
 Because the sharded front end computes exactly the same per-sample values as
 the single-device path (same convolution shapes per output, same constant DC
 correction, LO phase a pure function of the global sample index), the N-way
-step is bit-exact vs the 1-chip step — asserted by tests/test_sharding.py.
+step is bit-exact vs the 1-device step — asserted by tests/test_sharding.py.
 """
 
 from __future__ import annotations
@@ -43,22 +43,6 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS) -> Mesh:
     if n_devices is not None:
         devs = devs[:n_devices]
     return Mesh(np.asarray(devs), (axis,))
-
-
-def relaxed_shard_map(f, mesh: Mesh, in_specs, out_specs):
-    """shard_map with replication checking off, across jax versions (the
-    kwarg was renamed check_rep -> check_vma; older jax exposes shard_map
-    under jax.experimental)."""
-    import inspect
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-    params = inspect.signature(shard_map).parameters
-    relax = ({"check_vma": False} if "check_vma" in params
-             else {"check_rep": False})
-    return shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                     **relax)
 
 
 class FullyShardedReceiver:
@@ -101,15 +85,6 @@ class FullyShardedReceiver:
         self.iq_sharding = NamedSharding(mesh, P(axis))
         self.replicated = NamedSharding(mesh, P())
 
-        import inspect
-        try:
-            from jax import shard_map
-        except ImportError:
-            from jax.experimental.shard_map import shard_map
-        params = inspect.signature(shard_map).parameters
-        _relax = ({"check_vma": False} if "check_vma" in params
-                  else {"check_rep": False})
-
         def body(state, controls, iq_local):
             # defer_dc: the DC-servo gather folds into fm_chain's fused
             # end-of-chain collective (dc carries the local subsample)
@@ -127,11 +102,11 @@ class FullyShardedReceiver:
         from ..models.receiver import Output
         out_spec_output = Output(audio=P(axis), meta=P(), rds=P(), taps=P(),
                                  meta_vec=P(), audio_i16=P(axis))
-        self._body = shard_map(
+        self._body = jax.shard_map(
             body, mesh=mesh,
             in_specs=(P(), P(), P(axis)),
             out_specs=(P(), out_spec_output, P(axis)),
-            **_relax)
+            check_vma=False)
 
         def step(state, controls, iq):
             new_state, out, (in_tails, tails1, tails2) = self._body(
@@ -161,8 +136,8 @@ class StationTimeShardedReceiver:
     fully-sharded time axis (ppermute halos + distributed prefix
     recurrences within each station's block — FullyShardedReceiver).
     Each device holds `n_stations/S` stations' `block/T` time slice; all
-    collectives ride the 'time' axis only, so a TPU slice laid out with
-    'time' on the fast ICI dimension keeps the station axis free.
+    collectives ride the 'time' axis only, so the station axis adds no
+    traffic between devices.
 
     This is the band-scale production shape: identify/demodulate every
     station of a wideband capture with the per-station latency of a
@@ -212,10 +187,10 @@ class StationTimeShardedReceiver:
         S, T = station_axis, time_axis
         out_spec = Output(audio=P(S, T), meta=P(S), rds=P(S), taps=P(S),
                           meta_vec=P(S), audio_i16=P(S, T))
-        self._body = relaxed_shard_map(
+        self._body = jax.shard_map(
             vbody, mesh=mesh,
             in_specs=(P(S), P(S), P(T)),
-            out_specs=(P(S), out_spec, P(S, T)))
+            out_specs=(P(S), out_spec, P(S, T)), check_vma=False)
 
         def step(states, controls, iq):
             new_states, out, (in_tails, tails1, tails2) = self._body(
@@ -285,15 +260,6 @@ class ShardedReceiver:
         self.iq_sharding = NamedSharding(mesh, P(axis))
         self.replicated = NamedSharding(mesh, P())
 
-        import inspect
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
-        params = inspect.signature(shard_map).parameters
-        _relax = ({"check_vma": False} if "check_vma" in params
-                  else {"check_rep": False})
-
         def front(state, controls, iq_local):
             v_local, (dc, in_tail, t1, t2, _, _) = rx.front_end(
                 state, controls, iq_local, shard_axis=axis)
@@ -301,11 +267,11 @@ class ShardedReceiver:
                           for t in (in_tail, t1, t2))
             return v_local, dc, tails
 
-        self._front = shard_map(
+        self._front = jax.shard_map(
             front, mesh=mesh,
             in_specs=(P(), P(), P(axis)),
             out_specs=(P(axis), P(), P(axis)),
-            **_relax)
+            check_vma=False)
 
         def step(state: ReceiverState, controls: Controls, iq):
             v, dc_last, (in_tails, tails1, tails2) = self._front(

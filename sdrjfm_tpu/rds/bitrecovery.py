@@ -1,9 +1,9 @@
-"""RDS BPSK bit recovery — TPU-native block demodulator.
+"""RDS BPSK bit recovery — block-parallel demodulator for the accelerator.
 
 The reference offers three per-sample bit decoders at 24 kS/s
 (src/rds/rds-decoder-1/2/3.cpp: cuteSDR peak-slope, tomneda M&M + Costas,
 Feilen clock-correlation).  All three are sequential sample loops; this
-module is the TPU-native fourth design ("block" mode) built from their
+module is the block-parallel fourth design ("block" mode) built from their
 ingredients but fully vectorised:
 
   matched filter : decoder-2's complex RRC, Ts = 1/(2*1187.5), 45 taps

@@ -1,7 +1,7 @@
 """RDS block synchronizer — host-side stream state machine.
 
 At 1187.5 bit/s this is nowhere near a performance path, so it runs in plain
-Python/numpy on the host, fed by the TPU bit-recovery blocks.  Semantics:
+Python/numpy on the host, fed by the device bit-recovery blocks.  Semantics:
 src/rds/rds-blocksynchronizer.cpp:215-336 — acquisition requires a clean
 A -> B -> C run (SYNC_END_BLOCK = BLOCK_C, rds-blocksynchronizer.h:91),
 tracking decodes 26-bit blocks against the cycling offset words, BER is

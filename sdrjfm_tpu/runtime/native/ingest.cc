@@ -1,4 +1,4 @@
-// Native streaming ingest runtime for the TPU FM framework.
+// Native streaming ingest runtime for the sdrjfm FM framework.
 //
 // Plays the role of the reference's device layer (devices/): a source thread
 // produces complex-float IQ into a lock-free SPSC ring; the consumer (the

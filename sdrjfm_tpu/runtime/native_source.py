@@ -12,6 +12,7 @@ is present.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from pathlib import Path
@@ -33,16 +34,20 @@ def load_library(build: bool = True):
     global _lib
     if _lib is not None:
         return _lib
-    stale = (_LIB_PATH.exists()
-             and (_NATIVE_DIR / "ingest.cc").stat().st_mtime
-             > _LIB_PATH.stat().st_mtime)
-    if (not _LIB_PATH.exists() or stale) and build:
-        try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR), "-B"],
-                           check=True, capture_output=True)
-        except (OSError, subprocess.CalledProcessError) as e:
-            if not _LIB_PATH.exists():
-                raise NativeUnavailable(f"cannot build native ingest: {e}")
+    if build:
+        # the library is built from the committed sources at first use;
+        # the lock serialises concurrent first users (test workers, a CLI
+        # started beside another) so one builds and the others wait and
+        # reuse it — make's own timestamp check decides whether to rebuild
+        with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                subprocess.run(["make", "-C", str(_NATIVE_DIR)],
+                               check=True, capture_output=True)
+            except (OSError, subprocess.CalledProcessError) as e:
+                if not _LIB_PATH.exists():
+                    raise NativeUnavailable(
+                        f"cannot build native ingest: {e}")
     if not _LIB_PATH.exists():
         raise NativeUnavailable("libsdrjfm_ingest.so not built")
     lib = ctypes.CDLL(str(_LIB_PATH))

@@ -4,7 +4,7 @@ tools/reference_oracle/ compiles the Qt-free DSP sources of
 /root/reference (fm-demodulator, pilot-recover, stereo-separation, the
 filter/PLL/NCO primitives, and the full RDS stack) unmodified into
 libsdrjfm_ref_oracle.so behind a C ABI (see oracle.cc for the stage-order
-citations).  This binding drives it from Python so tests can A/B the TPU
+citations).  This binding drives it from Python so tests can A/B the JAX
 chain against the reference's actual code — not against re-derived
 oracles.
 

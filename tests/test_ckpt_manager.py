@@ -152,3 +152,16 @@ class TestCLI:
             main(["rx", "--iq", iq, "--audio", str(tmp_path / "a.wav"),
                   "--block-fm", "32768", "--runner", "scan",
                   "--ckpt-dir", str(tmp_path / "ck")])
+
+
+def test_orbax_backend_missing_exits_cleanly(tmp_path, monkeypatch, capsys):
+    """Without orbax installed, --ckpt-backend orbax is a clean exit 2
+    pointing to npz, before any input is read."""
+    import sys
+    from sdrjfm_tpu.app import main
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    rc = main(["rx", "--iq", str(tmp_path / "absent.wav"),
+               "--ckpt-backend", "orbax",
+               "--save-state", str(tmp_path / "state")])
+    assert rc == 2
+    assert "--ckpt-backend npz" in capsys.readouterr().err

@@ -352,7 +352,7 @@ def test_checkpoint_survives_iq_format_switch(tmp_path):
 
 
 def test_chunked_scan_runner_bit_exact():
-    """Chunked scan dispatches (bounded HBM) == one whole-capture dispatch."""
+    """Chunked scan dispatches (bounded device memory) == one whole-capture dispatch."""
     from sdrjfm_tpu import constants as C
     from sdrjfm_tpu.io import synth
     from sdrjfm_tpu.models.receiver import Receiver, ReceiverConfig

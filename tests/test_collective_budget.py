@@ -1,9 +1,8 @@
-"""Collective-count budget for the fully-sharded step (r3 verdict Weak #2).
+"""Collective-count budget for the fully-sharded step.
 
-Every sub-KB collective on a 1-D mesh costs a full ICI latency hop, and
-round 3 measured the fully-sharded step at +165% wall vs per-dispatch at
-mesh size 1, largely from ~12 separate small all_gathers (stream tails,
-peaks, z24, DC subsample).  Round 4 fuses them:
+Every sub-KB collective on a 1-D mesh costs a full latency hop between
+devices, and the fully-sharded step used to issue ~12 separate small
+all_gathers (stream tails, peaks, z24, DC subsample).  They are fused:
 
   - demod AM-carrier + AFC trackers share one gather (dist_ema2)
   - PSS S_k/W_k/lock flags share one packed gather
@@ -54,17 +53,9 @@ def test_fully_sharded_collective_budget():
 
 
 def _shmap(fn, mesh, n_in, axis="time"):
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
-    import inspect
-    params = inspect.signature(shard_map).parameters
-    relax = ({"check_vma": False} if "check_vma" in params
-             else {"check_rep": False})
-    return shard_map(fn, mesh=mesh, in_specs=(P(axis),) * n_in,
-                     out_specs=P(), **relax)
+    return jax.shard_map(fn, mesh=mesh, in_specs=(P(axis),) * n_in,
+                         out_specs=P(), check_vma=False)
 
 
 def test_dist_ema2_matches_two_dist_emas():

@@ -9,23 +9,13 @@ from sdrjfm_tpu.ops import blockops as B
 from sdrjfm_tpu.parallel import distributed as D
 from sdrjfm_tpu.parallel.sharding import make_mesh
 
-try:
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
-
-import inspect
-_RELAX = ({"check_vma": False}
-          if "check_vma" in inspect.signature(shard_map).parameters
-          else {"check_rep": False})
-
 AXIS = "time"
 RNG = np.random.default_rng(0)
 
 
 def _smap(fn, mesh, in_specs, out_specs):
-    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                     **_RELAX)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def test_dist_fir_matches_single():

@@ -3,7 +3,7 @@
 The reference's 65536-point overlap-add lowpass (inputFilter,
 fm-processor.cpp:77,147-149, off by default because it 'requires some serious
 cpu use'; README.md:46-52 describes its purpose: separating overlapping
-transmissions).  Here it's an overlap-save batched FFT conv — cheap on TPU.
+transmissions).  Here it's an overlap-save batched FFT conv.
 
 Scenario: wanted station at 0 Hz, strong interferer at +150 kHz (inside the
 capture, overlapping the decimation transition band).  The cascade alone leaves

@@ -1,7 +1,7 @@
 """Wire-format tests: i16/u8 on-device conversion == c64 path, bit for bit.
 
-The chain is HBM-bound on reading the 2.304 MS/s input, so narrow formats
-(ReceiverConfig.iq_format) are the main throughput lever; these tests pin
+Narrow formats (ReceiverConfig.iq_format) cut the bytes the front end
+reads per 2.304 MS/s input sample; these tests pin
 that they are a pure layout change, not a numerics change: int16/32768 and
 (uint8-127)/128 are exact in float32, so feeding raw integers must reproduce
 the complex64 run sample-for-sample.

@@ -31,7 +31,7 @@ def test_host_slice_partition():
 def test_two_process_distributed_matches_single():
     """TRUE multi-process multihost: 2 jax.distributed CPU processes x 2
     devices each run the FullyShardedReceiver over a global 4-device mesh,
-    each staging only its own host_slice over 'DCN'
+    each staging only its own host_slice across hosts
     (make_array_from_process_local_data).  Replicated outputs must agree
     across processes and match a single-process 4-device run bit-for-bit
     (same mesh size -> same collective order)."""

@@ -14,7 +14,6 @@ from sdrjfm_tpu.io import synth
 from sdrjfm_tpu.models.receiver import (Receiver, ReceiverConfig,
                                         default_controls)
 from sdrjfm_tpu.models.tuner import RadioController
-from sdrjfm_tpu.rds import encode
 from sdrjfm_tpu.rds.blocksync import BlockSynchronizer, Group
 from sdrjfm_tpu.rds.groups import GroupDecoder
 from sdrjfm_tpu.runtime.stream import run_offline
@@ -26,26 +25,7 @@ STATIONS = [
 
 
 def make_capture(seconds=3.0, noise=0.01):
-    n = int(seconds * C.FM_RATE)
-    t = np.arange(n) / C.FM_RATE
-    total = None
-    for st in STATIONS:
-        name_bits = []
-        for _ in range(40):
-            for seg in range(4):
-                name_bits.extend(encode.group_0a(
-                    st["pi"], 10, seg, st["name"][2 * seg:2 * seg + 2]))
-        syms = encode.differential_encode(np.asarray(name_bits, np.int8))
-        mpx = synth.synth_mpx(0.6 * np.sin(2 * np.pi * st["tone"] * t),
-                              0.6 * np.sin(2 * np.pi * st["tone"] * t),
-                              synth.MPXParams(rds_level=0.08), rds_bits=syms)
-        iq = synth.fm_modulate(mpx, C.FM_RATE,
-                               carrier_offset_hz=st["offset"])
-        total = iq if total is None else total + iq
-    rng = np.random.default_rng(0)
-    total = total + noise * (rng.standard_normal(len(total))
-                             + 1j * rng.standard_normal(len(total)))
-    return total.astype(np.complex64)
+    return synth.multistation_iq(STATIONS, seconds=seconds, noise=noise)
 
 
 def test_scan_tune_identify():

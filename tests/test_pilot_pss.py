@@ -1,4 +1,4 @@
-"""Pilot/PSS: TPU-native block estimators vs faithful per-sample scan oracles."""
+"""Pilot/PSS: block-parallel estimators vs faithful per-sample scan oracles."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ import pytest
 
 from sdrjfm_tpu import constants as C
 from sdrjfm_tpu.io import synth
+from sdrjfm_tpu.io.synth import band_power, tone_snr_db
 from sdrjfm_tpu.models.receiver import Receiver, ReceiverConfig
 from sdrjfm_tpu.runtime.stream import run_offline
 
@@ -26,23 +27,6 @@ def make_iq(seconds=1.5, left=None, right=None, rds_bits=None,
     p = synth.MPXParams(**(mpx_kwargs or {}))
     mpx = synth.synth_mpx(left, right, p, rds_bits=rds_bits)
     return synth.fm_modulate(mpx, C.FM_RATE, **fm_kwargs)
-
-
-def tone_snr_db(x, rate, freq, guard_bins=3):
-    """Power at `freq` (±guard bins) vs everything else (excluding DC)."""
-    w = np.hanning(len(x))
-    X = np.abs(np.fft.rfft(x * w)) ** 2
-    bin_f = int(round(freq * len(x) / rate))
-    sig = X[bin_f - guard_bins : bin_f + guard_bins + 1].sum()
-    noise = X[8:].sum() - sig
-    return 10 * np.log10(sig / max(noise, 1e-30))
-
-
-def band_power(x, rate, freq, guard_bins=3):
-    w = np.hanning(len(x))
-    X = np.abs(np.fft.rfft(x * w)) ** 2
-    bin_f = int(round(freq * len(x) / rate))
-    return X[bin_f - guard_bins : bin_f + guard_bins + 1].sum()
 
 
 class TestMono:
@@ -122,7 +106,7 @@ class TestRDS:
 
         data_bits = encode.make_bitstream(pi=0x20AB, pty=5,
                                           station="JAXRADIO",
-                                          radiotext="TPU NATIVE FM\r")
+                                          radiotext="JAX NATIVE FM\r")
         channel_syms = encode.differential_encode(data_bits)
         n = int(4.0 * C.FM_RATE)
         t = np.arange(n) / C.FM_RATE
@@ -143,7 +127,7 @@ class TestRDS:
         assert dec.result.pi_code == 0x20AB
         assert dec.result.station_label == "JAXRADIO"
         assert dec.result.pty_code == 5
-        assert "TPU NATIVE FM" in dec.result.radio_text
+        assert "JAX NATIVE FM" in dec.result.radio_text
         assert sync.bit_error_rate < 0.01
 
 

@@ -1,4 +1,4 @@
-"""A/B the TPU chain against the REFERENCE receiver's own compiled code.
+"""A/B the JAX chain against the REFERENCE receiver's own compiled code.
 
 tools/reference_oracle/ builds /root/reference's Qt-free DSP core
 (fm-demodulator.cpp, pilot-recover.cpp, stereo-separation.cpp, the filter
@@ -104,7 +104,7 @@ class TestReferenceStandalone:
 
 
 class TestChainVsReference:
-    """The TPU chain against the reference's own code, same capture."""
+    """The JAX chain against the reference's own code, same capture."""
 
     def test_demod_stream_matches(self, oracle_out, chain_out):
         res, _ = chain_out
@@ -238,7 +238,7 @@ class TestMoreDiscriminators:
         assert abs(g - 1.0) < 1e-3
 
     def test_pll(self, capture):
-        """The reference integrates a per-sample 1-pole PLL; the TPU
+        """The reference integrates a per-sample 1-pole PLL; the JAX
         decoder is its batched equivalent (ops/demod.py) — dynamics agree
         to ~28 dB, looser than the memoryless discriminators."""
         snr, g = self._ab(capture, 2, "pll")
@@ -249,7 +249,7 @@ class TestMoreDiscriminators:
 class TestOptionalStages:
     """Optional-filter configs.  The reference's fftFilter carries an
     inherent fftSize-degree block latency (overlap-ADD buffering,
-    fft-filters.cpp:97-163); the TPU overlap-save is causal with zero
+    fft-filters.cpp:97-163); the JAX overlap-save is causal with zero
     block latency (ops/blockops.py) — so these A/Bs align at exactly the
     documented latency before comparing."""
 
@@ -319,7 +319,7 @@ class TestOptionalStages:
 
 
 class TestRdsDecoderModes:
-    """The reference's per-sample RDS decoders 2 and 3 vs the TPU scan
+    """The reference's per-sample RDS decoders 2 and 3 vs the JAX scan
     re-expressions — identical decoded identity at BER 0."""
 
     @pytest.mark.parametrize("ref_mode,mine", [(1, "scan1"), (2, "scan2"),
@@ -421,7 +421,7 @@ class TestPssConvergence:
         without the compile switch: inject a 0.2 rad (11.46 deg) phase
         error on the 38 kHz subcarrier and both PSS loops must converge
         to correct it — the reference's own PerfectStereoSeparation and
-        the TPU sub-block Costas land within 1 degree of each other AND
+        the JAX sub-block Costas land within 1 degree of each other AND
         of the injected value."""
         build_oracle()
         n_fm = 6 * C.FM_RATE
